@@ -22,9 +22,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from mfcc_tpu.config import MFCCConfig
-from mfcc_tpu.ref import int_ref, float_ref
-from mfcc_tpu import tables
+from mfcc_jax.config import MFCCConfig
+from mfcc_jax.ref import int_ref, float_ref
+from mfcc_jax import tables
 
 
 def section(title):
@@ -173,9 +173,9 @@ def main():
           "\n  the quantization cost the notebook quantifies "
           "(MFCC.ipynb cell 45)")
     import jax.numpy as jnp
-    from mfcc_tpu import MFCC
+    from mfcc_jax import MFCC
     jcep = np.asarray(MFCC(cfg).int(jnp.asarray(sig, jnp.int32)))[:F]
-    print(f"  TPU pipeline == oracle: {np.array_equal(jcep, cep)} "
+    print(f"  JAX pipeline == oracle: {np.array_equal(jcep, cep)} "
           "(element-exact)")
 
     if args.plots:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Quickstart: every major surface of mfcc_tpu in one script.
+"""Quickstart: every major surface of mfcc_jax in one script.
 
 Run: python examples/quickstart.py [path/to/16khz.wav]
 """
@@ -14,11 +14,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def main():
     import jax.numpy as jnp
-    from mfcc_tpu import MFCC, MFCCConfig
-    from mfcc_tpu.io import wav
-    from mfcc_tpu.streaming import StreamingMFCC
-    from mfcc_tpu.utils.liftering import lifter
-    from mfcc_tpu.utils.vad import has_voice
+    from mfcc_jax import MFCC, MFCCConfig
+    from mfcc_jax.io import wav
+    from mfcc_jax.streaming import StreamingMFCC
+    from mfcc_jax.utils.liftering import lifter
+    from mfcc_jax.utils.vad import has_voice
 
     if len(sys.argv) > 1:
         audio, sr = wav.read(sys.argv[1])

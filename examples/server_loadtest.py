@@ -7,7 +7,7 @@ frames/s, per-chunk reply latency (p50/p99), and stepper-loop occupancy
 client pacing chunk-sized sends at the real-time rate (C/16000 s period).
 
     python examples/server_loadtest.py --streams 256 --seconds 8
-    python examples/server_loadtest.py --streams 64 --cpu     # no TPU needed
+    python examples/server_loadtest.py --streams 64 --cpu     # no GPU needed
 
 One sender thread paces all sockets; one selector-driven reader drains
 replies, so the harness itself scales to hundreds of connections.
@@ -34,9 +34,9 @@ def main():
     ap.add_argument("--tick", type=float, default=0.002)
     args = ap.parse_args()
 
-    from mfcc_tpu.config import MFCCConfig
-    from mfcc_tpu import server as srv
-    from mfcc_tpu.io import transport
+    from mfcc_jax.config import MFCCConfig
+    from mfcc_jax import server as srv
+    from mfcc_jax.io import transport
 
     cfg = MFCCConfig(nceptrums=args.ncep)
     device = None

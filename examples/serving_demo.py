@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Serving demo: one batched FeatureServer, many concurrent clients.
 
-Spins up the TCP feature server (the reference's USB3/UART device link,
-TPU-native), drives N concurrent client connections each streaming its own
+Spins up the TCP feature server (the reference's USB3/UART device link
+as a TCP service), drives N concurrent client connections each streaming its own
 audio, and checks every client's features are bit-exact with the fixed-point
 oracle -- demonstrating that multiplexing onto one jit-compiled batch step
 preserves per-stream numerics.
@@ -21,9 +21,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def main():
-    from mfcc_tpu.config import MFCCConfig
-    from mfcc_tpu.ref import int_ref
-    from mfcc_tpu.server import FeatureServer, stream_samples
+    from mfcc_jax.config import MFCCConfig
+    from mfcc_jax.ref import int_ref
+    from mfcc_jax.server import FeatureServer, stream_samples
 
     n_clients = int(sys.argv[1]) if len(sys.argv) > 1 else 4
     seconds = float(sys.argv[2]) if len(sys.argv) > 2 else 1.0

@@ -1,7 +1,7 @@
-// Native host-side runtime for mfcc_tpu: WAV decode, threaded batch data
+// Native host-side runtime for mfcc_jax: WAV decode, threaded batch data
 // loading, and the framed wire protocols.
 //
-// This is the TPU-native equivalent of the reference's C host inventory
+// This is the equivalent of the reference's C host inventory
 // (SURVEY.md section 2.6):
 //   * WAV reading            -- software/libwav submodule + main.c:56-98
 //   * stream packetization   -- main.c:128-165 (32-bit words, low int16 =
@@ -154,7 +154,7 @@ int mfcc_wav_read(const char *path, int16_t **out, int64_t *n_samples,
 // ---------------------------------------------------------------------------
 // Threaded batch loader: decode many wavs into one fixed-shape int16 matrix
 // (n_files x max_samples, zero padded) -- the data loader that feeds the
-// batched TPU pipeline.
+// batched device pipeline.
 // ---------------------------------------------------------------------------
 
 int mfcc_wav_read_batch(const char **paths, int32_t n_files,

@@ -8,9 +8,9 @@ import sys
 import numpy as np
 import pytest
 
-from mfcc_tpu.config import MFCCConfig
-from mfcc_tpu.io import capture, transport
-from mfcc_tpu.ref import int_ref
+from mfcc_jax.config import MFCCConfig
+from mfcc_jax.io import capture, transport
+from mfcc_jax.ref import int_ref
 
 CFG16 = MFCCConfig(nceptrums=16)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,7 +49,7 @@ def test_cli_mic_end_to_end(tmp_path, audio_int16):
     script, _ = _fake_device(tmp_path, audio_int16)      # 1192 samples
     outfile = tmp_path / "mic.bin"
     rc = subprocess.run(
-        [sys.executable, "-m", "mfcc_tpu.cli", "mic", str(outfile),
+        [sys.executable, "-m", "mfcc_jax.cli", "mic", str(outfile),
          "--command", script, "--chunk", "1024"],
         capture_output=True, text=True, cwd=REPO, timeout=600)
     assert rc.returncode == 0, rc.stderr[-2000:]

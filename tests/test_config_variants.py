@@ -5,9 +5,9 @@ run at the mic config."""
 import numpy as np
 import pytest
 
-from mfcc_tpu import MFCC, MFCCConfig, MIC_CONFIG
-from mfcc_tpu.ref import int_ref, float_ref
-from mfcc_tpu import tables
+from mfcc_jax import MFCC, MFCCConfig, MIC_CONFIG
+from mfcc_jax.ref import int_ref, float_ref
+from mfcc_jax import tables
 
 
 def test_mic_config_jax_parity(audio_int16):
@@ -49,7 +49,7 @@ def test_nfft_256_oracle():
 
 
 def test_streaming_state_checkpoint_file(tmp_path, audio_int16):
-    from mfcc_tpu.streaming import StreamingMFCC, save_state, load_state
+    from mfcc_jax.streaming import StreamingMFCC, save_state, load_state
     sm = StreamingMFCC(MFCCConfig())
     state = sm.init(2)
     f, m, state = sm.step(np.stack([audio_int16[:298]] * 2), state)
@@ -71,7 +71,7 @@ def test_windowlen_zero_pad_mode(audio_int16):
     got = np.asarray(MFCC(cfg).int(sig))
     assert np.array_equal(want, got)
 
-    from mfcc_tpu.streaming import StreamingMFCC
+    from mfcc_jax.streaming import StreamingMFCC
     sm = StreamingMFCC(cfg, int_path=True)
     outs, state = sm.process(sig[None], chunk_size=299)
     assert np.array_equal(outs[0], want)
@@ -87,7 +87,7 @@ def test_arbitrary_stepsize(audio_int16):
     """Frame accepts any stepsize (mfcc/core/frame.py:49-58); MFCCConfig.step
     frees the hop from nfft//3 (round-2 VERDICT missing item 3).  INT parity
     at an even hop (160 = 10 ms) and an odd one (123), batch + streaming."""
-    from mfcc_tpu.streaming import StreamingMFCC
+    from mfcc_jax.streaming import StreamingMFCC
     sig = audio_int16.astype(np.int64)
     for step in (160, 123):
         cfg = MFCCConfig(step=step)
@@ -130,7 +130,7 @@ def test_log2fixcalc_fraction_mode():
     """Log2FixCalc's SHIFT-LEFT fraction-input mode (mfcc/core/log.py:47-55):
     branch-free jax twin == literal FSM simulation, incl. the negative-
     exponent register wraparound; plus the no-fraction unnormalized path."""
-    from mfcc_tpu.ops import int_ops
+    from mfcc_jax.ops import int_ops
     import jax.numpy as jnp
     width, precision = 27, 11
     xs = np.array([1, 2, 3, 100, 1024, 2047, 2048, 2049, 4096,
@@ -152,47 +152,10 @@ def test_log2fixcalc_fraction_mode():
 
 
 def test_mic_config_float_kernel_parity(audio_int16):
-    """Float path at the mic config (16 cepstra) -- on TPU this routes
-    through the radix-2 kernel with a non-default output height."""
+    """Float path at the mic config (16 cepstra): a non-default output
+    height through the default float chain."""
     sig = audio_int16.astype(np.float32)
     want = float_ref.mfcc_float(sig, MIC_CONFIG)
     got = np.asarray(MFCC(MIC_CONFIG)(sig))
     assert want.shape == got.shape == (5, 16)
     assert np.abs(want - got).max() < 5e-4
-
-
-@pytest.mark.parametrize("nfft,step", [(256, 84), (1024, 340)])
-def test_fused_float_kernel_other_nfft(nfft, step):
-    """Round-4 VERDICT #5 (perf generality): the fused radix-2 float kernel
-    accepts the whole power-of-2 family the reference core is parameterized
-    over (/root/reference/mfcc/core/mfcc.py:20-21, misc/fft.py:349-380) --
-    nfft=256 and 1024 run through the KERNEL (interpret mode here; the
-    5e-4 contract gate vs the f64 oracle), both operator packings, and the
-    streaming frames entry, not the XLA fallback."""
-    import jax
-    import jax.numpy as jnp
-    from mfcc_tpu.ops import pallas_mfcc, framing
-
-    cfg = MFCCConfig(nfft=nfft, step=step)
-    assert pallas_mfcc.pallas_float_config_ok(cfg)
-    rng = np.random.default_rng(11)
-    T = nfft + 7 * cfg.hop
-    t = np.arange(T) / 16000.0
-    base = 9000 * np.sin(2 * np.pi * (200 + 3000 * t) * t)
-    sig = np.round(np.clip(base[None] + rng.integers(-1500, 1500, (2, T)),
-                           -32768, 32767)).astype(np.float32)
-    want = np.stack([float_ref.mfcc_float(s.astype(np.float64), cfg)
-                     for s in sig])
-    cpu = jax.devices("cpu")[0]
-    outs = {}
-    with jax.default_device(cpu):
-        for pack in (True, False):
-            outs[pack] = np.asarray(pallas_mfcc.mfcc_pallas_radix2(
-                jnp.asarray(sig), cfg, interpret=True, pack256=pack))
-            assert np.abs(want - outs[pack]).max() < 5e-4
-        emph = framing.preemphasis(jnp.asarray(sig))
-        frames = framing.extract_frames(emph, cfg.nfft, cfg.hop)
-        got_f = np.asarray(pallas_mfcc.mfcc_pallas_frames_float(
-            frames, cfg, interpret=True))
-    assert np.abs(outs[True] - outs[False]).max() < 1e-5
-    assert np.abs(want - got_f).max() < 5e-4

@@ -4,17 +4,17 @@ The reference's goldens come from real librosa (software/genlibrosa.py:14-28).
 librosa is absent here, so the committed fixtures were generated from an
 INDEPENDENT implementation -- transformers.audio_utils (HuggingFace's numpy
 port of the same librosa conventions) + scipy's DCT -- by
-tests/fixtures/make_goldens.py.  These tests pin mfcc_tpu's recipe to those
+tests/fixtures/make_goldens.py.  These tests pin mfcc_jax's recipe to those
 arrays so drift is caught without librosa; the live cross-check against
 transformers runs too (it is baked into this environment).
-(numpy-only -- no TPU compiles)"""
+(numpy-only -- no device compiles)"""
 
 import os
 
 import numpy as np
 import pytest
 
-from mfcc_tpu.compat import librosa_mfcc as lr
+from mfcc_jax.compat import librosa_mfcc as lr
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(HERE, "fixtures")
@@ -64,7 +64,7 @@ def test_goldens_cli_writes_fixture_format(reference_wav, tmp_path):
     """`cli goldens` writes .spec/.sklearn files identical to the fixtures
     when pointed at the reference wav."""
     import shutil
-    from mfcc_tpu.cli import main
+    from mfcc_jax.cli import main
     wav = tmp_path / "f2bjrop1.0.wav"
     shutil.copy("/root/reference/f2bjrop1.0.wav", wav)
     assert main(["goldens", str(tmp_path)]) == 0

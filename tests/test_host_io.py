@@ -1,13 +1,13 @@
 """Host layer: native wav decode, transport protocols, goldens tooling.
-(numpy-only -- no TPU compiles)"""
+(numpy-only -- no device compiles)"""
 
 import os
 
 import numpy as np
 import pytest
 
-from mfcc_tpu.io import native, wav, transport
-from mfcc_tpu.compat import librosa_mfcc as lr
+from mfcc_jax.io import native, wav, transport
+from mfcc_jax.compat import librosa_mfcc as lr
 
 
 def test_native_builds():

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from mfcc_tpu import MFCC, MFCCConfig
-from mfcc_tpu.ref import int_ref
-from mfcc_tpu.ops import int_ops, framing
+from mfcc_jax import MFCC, MFCCConfig
+from mfcc_jax.ref import int_ref
+from mfcc_jax.ops import int_ops, framing
 
 
 CFG = MFCCConfig()
@@ -116,3 +116,49 @@ def test_preemphasis_int_wraps():
     want = int_ref.preemphasis_int(x)
     got = np.asarray(framing.preemphasis_int(jnp.asarray(x, jnp.int32)))
     assert np.array_equal(want, got)
+
+
+@pytest.mark.parametrize("nfft", [256, 512, 1024])
+def test_filterbank_int32_equals_int64(nfft):
+    """The x64-free limb filterbank equals the int64 accumulator on random
+    power values across the full 30-bit range, extremes included."""
+    cfg = MFCCConfig(nfft=nfft)
+    args = (cfg.samplerate, cfg.nfft, cfg.nfilters, cfg.filter_wsize,
+            cfg.filter_gain, 16, cfg.power_width)
+    rng = np.random.default_rng(nfft)
+    power = rng.integers(0, 1 << 30, size=(6, nfft // 2)).astype(np.int64)
+    power[0] = 0
+    power[1] = (1 << 30) - 1
+    with jax.enable_x64():
+        want = np.asarray(jax.jit(lambda p: int_ops.filterbank_int(p, *args))(
+            jnp.asarray(power)))
+    got = np.asarray(jax.jit(lambda p: int_ops.filterbank_int32(p, *args))(
+        jnp.asarray(power, jnp.int32)))
+    assert np.array_equal(want, got)
+
+
+def test_filterbank_int32_is_one_matmul():
+    """Every limb pair goes through a single dot_general: per-pair matmuls
+    that share operands get merged by XLA's GPU backend into one GEMM with
+    a concatenated prologue, which returned wrong rows in some runs on an
+    H100."""
+    power = jnp.zeros((3, 256), jnp.int32)
+    jaxpr = jax.make_jaxpr(int_ops.filterbank_int32)(power).jaxpr
+    dots = [e for e in jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert len(dots) == 1
+    rhs, pairs, _ = int_ops._fb_limb_operator(16000, 512, 32, 30, 18, 16, 30)
+    assert len(pairs) == 15 and rhs.shape == (4 * 256, 15 * 32)
+
+
+@pytest.mark.gpu
+def test_int_batch_repeatable_on_gpu(gpu_device):
+    """Repeated runs of one compiled INT batch on the card all equal the
+    CPU backend's result (the per-pair matmul form failed this on an H100
+    in 7 of 40 runs)."""
+    rng = np.random.default_rng(7)
+    audio = rng.integers(-12000, 12000, size=(1024, 4096)).astype(np.int32)
+    fe = MFCC(CFG)
+    want = np.asarray(fe._int_jit(jax.device_put(audio, jax.devices("cpu")[0])))
+    x = jax.device_put(audio, gpu_device)
+    for _ in range(10):
+        assert np.array_equal(np.asarray(fe.int(x)), want)

@@ -5,18 +5,18 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mfcc_tpu import MFCCConfig
-from mfcc_tpu.models import (Spectrogram, MelSpectrogram, LogMelSpectrogram,
+from mfcc_jax import MFCCConfig
+from mfcc_jax.models import (Spectrogram, MelSpectrogram, LogMelSpectrogram,
                              MFCCFeatures, IntMFCCFeatures, LibrosaMFCC)
-from mfcc_tpu.ref import float_ref, int_ref
+from mfcc_jax.ref import float_ref, int_ref
 
 CFG = MFCCConfig()
 
 
 def _cpu():
     """Server tests exercise protocol/slot semantics; pin the step to the
-    host CPU so they don't pay remote kernel compiles (TPU-step parity is
-    covered by tests/test_pallas_stream.py)."""
+    host CPU so they need no accelerator (the server on the GPU is
+    checked by chip_smoke.py's server phase)."""
     import jax
     return jax.devices("cpu")[0]
 
@@ -44,7 +44,7 @@ def test_model_family_consistency(audio_int16):
 
 
 def test_librosa_jax_matches_numpy_recipe(audio_int16):
-    from mfcc_tpu.compat import librosa_mfcc as lr
+    from mfcc_jax.compat import librosa_mfcc as lr
     want = lr.mfcc(audio_int16, sr=16000, hop=170, n_mfcc=32)
     got = np.asarray(LibrosaMFCC()(audio_int16))
     assert got.shape == want.shape
@@ -54,7 +54,7 @@ def test_librosa_jax_matches_numpy_recipe(audio_int16):
 def test_differentiable_front_end(audio_int16):
     """The float pipeline is a trainable front-end: grads flow to the audio
     (and would flow to any learnable filterbank)."""
-    from mfcc_tpu.ops import float_ops
+    from mfcc_jax.ops import float_ops
     x = jnp.asarray(audio_int16[:852], jnp.float32)
 
     def loss(a):
@@ -71,8 +71,8 @@ def test_differentiable_front_end(audio_int16):
 def test_feature_server_roundtrip(audio_int16):
     """TCP serving: wire-protocol in/out, bit-exact vs the INT oracle,
     including a mid-stream soft reset."""
-    from mfcc_tpu.server import FeatureServer, stream_samples
-    from mfcc_tpu.io import transport
+    from mfcc_jax.server import FeatureServer, stream_samples
+    from mfcc_jax.io import transport
     import socket
 
     sig = audio_int16[:1024]
@@ -143,7 +143,7 @@ def test_server_status_plane(audio_int16):
     PING/CONFIG/SLOTS/STATS/LOGLEVEL over the second port, with counters
     reflecting real traffic."""
     import logging as _logging
-    from mfcc_tpu.server import FeatureServer, stream_samples, query_status
+    from mfcc_jax.server import FeatureServer, stream_samples, query_status
 
     sig = audio_int16[:1024]
     want = int_ref.mfcc_int(sig.astype(np.int64), CFG)
@@ -169,14 +169,14 @@ def test_server_status_plane(audio_int16):
         assert sum(s["rx_words"] for s in slots) >= len(sig)
 
         # control write: set, read back, restore (one connection each)
-        old = _logging.getLogger("mfcc_tpu.server").getEffectiveLevel()
+        old = _logging.getLogger("mfcc_jax.server").getEffectiveLevel()
         try:
             (set_r,) = query_status(shost, sport, "LOGLEVEL DEBUG")
             assert set_r["loglevel"] == "DEBUG"
             (err,) = query_status(shost, sport, "BOGUS")
             assert err.startswith("ERR")
         finally:
-            _logging.getLogger("mfcc_tpu.server").setLevel(old)
+            _logging.getLogger("mfcc_jax.server").setLevel(old)
     finally:
         srv.stop()
 
@@ -187,9 +187,9 @@ def test_server_trailing_reset_and_eof_flush(audio_int16):
     Also: EOF flushes the final partial chunk (batch parity, no drop)."""
     import socket
     import time as _time
-    from mfcc_tpu.server import FeatureServer, stream_samples
-    from mfcc_tpu.io import transport
-    from mfcc_tpu.config import RESET_WORD
+    from mfcc_jax.server import FeatureServer, stream_samples
+    from mfcc_jax.io import transport
+    from mfcc_jax.config import RESET_WORD
 
     a = audio_int16[:1024]
     b = audio_int16[:1500]
@@ -236,9 +236,9 @@ def test_server_trailing_reset_and_eof_flush(audio_int16):
 
 
 def test_f64_high_accuracy_mode(audio_int16):
-    """Golden-accuracy mode: float64 pipeline under x64 (on TPU the x64
-    rewriter emulates f64; exactness vs the numpy oracle is ~1e-9)."""
-    from mfcc_tpu.ops import float_ops
+    """Golden-accuracy mode: float64 pipeline under x64 (exactness vs
+    the numpy oracle is ~1e-9)."""
+    from mfcc_jax.ops import float_ops
     import functools
     want = float_ref.mfcc_float(audio_int16, CFG)
     with jax.enable_x64():
@@ -256,9 +256,9 @@ def test_cli_serve_end_to_end(audio_int16):
     bounded duration, stream a client through it, exact features."""
     import threading
     import time as _time
-    from mfcc_tpu import cli
-    from mfcc_tpu import server as srv_mod
-    from mfcc_tpu.ref import int_ref
+    from mfcc_jax import cli
+    from mfcc_jax import server as srv_mod
+    from mfcc_jax.ref import int_ref
 
     rc = {}
 

@@ -15,7 +15,7 @@ import sys
 import jax
 import pytest
 
-from mfcc_tpu.parallel.bootstrap import cpu_mesh_env, REPO_ROOT
+from mfcc_jax.parallel.bootstrap import cpu_mesh_env, REPO_ROOT
 
 N = 8
 

@@ -9,8 +9,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from mfcc_tpu.config import MFCCConfig
-from mfcc_tpu.ref import int_ref
+from mfcc_jax.config import MFCCConfig
+from mfcc_jax.ref import int_ref
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLIENT = os.path.join(REPO, "native", "mfcc_client")
@@ -30,7 +30,7 @@ def _write_wav(path, samples: np.ndarray, sr: int = 16000):
 def test_native_client_end_to_end(tmp_path, audio_int16):
     """Three files of different lengths (incl. one needing a tail flush and
     one shorter than a chunk) convert bit-exactly, file boundaries honored."""
-    from mfcc_tpu.server import FeatureServer
+    from mfcc_jax.server import FeatureServer
 
     cfg = MFCCConfig()
     sigs = {

@@ -15,17 +15,17 @@ import time
 import numpy as np
 import pytest
 
-from mfcc_tpu.config import MFCCConfig, RESET_WORD
-from mfcc_tpu.io import transport
-from mfcc_tpu.ref import int_ref
+from mfcc_jax.config import MFCCConfig, RESET_WORD
+from mfcc_jax.io import transport
+from mfcc_jax.ref import int_ref
 
 CFG = MFCCConfig()
 
 
 def _cpu():
     """Server tests exercise protocol/slot semantics; pin the step to the
-    host CPU so they don't pay remote kernel compiles (TPU-step parity is
-    covered by tests/test_pallas_stream.py)."""
+    host CPU so they need no accelerator (the server on the GPU is
+    checked by chip_smoke.py's server phase)."""
     import jax
     return jax.devices("cpu")[0]
 
@@ -38,7 +38,7 @@ def _expected(epochs):
 
 
 def test_server_protocol_fuzz(audio_int16):
-    from mfcc_tpu.server import FeatureServer
+    from mfcc_jax.server import FeatureServer
 
     rng = np.random.default_rng(99)
     base = np.tile(audio_int16, 4)                     # 4768 samples

@@ -1,6 +1,6 @@
 """Streaming == batch, for adversarial chunkings, resets, and both paths.
 
-The TPU restatement of the reference's randomized-backpressure Frame benches
+The batched restatement of the reference's randomized-backpressure Frame benches
 (mfcc/core/frame.py:157-255): any chunk boundary placement must be invisible
 in the output."""
 
@@ -8,9 +8,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mfcc_tpu import MFCC, MFCCConfig
-from mfcc_tpu.streaming import StreamingMFCC
-from mfcc_tpu.ref import int_ref
+from mfcc_jax import MFCC, MFCCConfig
+from mfcc_jax.streaming import StreamingMFCC
+from mfcc_jax.ref import int_ref
 
 CFG = MFCCConfig()
 
@@ -223,7 +223,7 @@ class TestSilenceContract:
         assert np.array_equal(feats, np.zeros_like(feats))  # RTL 0->1 clamp
 
     def test_server_float_path_defaults_to_floor(self):
-        from mfcc_tpu.server import FeatureServer
+        from mfcc_jax.server import FeatureServer
         import jax
         cpu = jax.devices("cpu")[0] if jax.devices("cpu") else None
         srv = FeatureServer(CFG, int_path=False, max_streams=1, device=cpu)

@@ -1,13 +1,13 @@
 """Streaming fuzz: fixed pseudo-random chunkings + reset schedules vs the
-oracle (the TPU restatement of the reference's randomized-backpressure
+oracle (the batched restatement of the reference's randomized-backpressure
 benches, kept to a small number of distinct jit shapes)."""
 
 import numpy as np
 import pytest
 
-from mfcc_tpu import MFCCConfig
-from mfcc_tpu.streaming import StreamingMFCC
-from mfcc_tpu.ref import int_ref
+from mfcc_jax import MFCCConfig
+from mfcc_jax.streaming import StreamingMFCC
+from mfcc_jax.ref import int_ref
 
 CFG = MFCCConfig()
 

@@ -4,8 +4,8 @@ source (pure numpy, no JAX)."""
 import numpy as np
 import scipy.fft
 
-from mfcc_tpu import tables
-from mfcc_tpu.ref import int_ref
+from mfcc_jax import tables
+from mfcc_jax.ref import int_ref
 
 
 def test_hamming_lut_documented_values():

@@ -4,10 +4,10 @@ config derived properties, oracle edge behaviors."""
 import numpy as np
 import pytest
 
-from mfcc_tpu import MFCCConfig, MIC_CONFIG, RESET_WORD, MAGIC_WORD
-from mfcc_tpu.utils.vad import voice_activity_power, has_voice, DEFAULT_THRESHOLD
-from mfcc_tpu.utils.liftering import lifter
-from mfcc_tpu.ref import int_ref, float_ref
+from mfcc_jax import MFCCConfig, MIC_CONFIG, RESET_WORD, MAGIC_WORD
+from mfcc_jax.utils.vad import voice_activity_power, has_voice, DEFAULT_THRESHOLD
+from mfcc_jax.utils.liftering import lifter
+from mfcc_jax.ref import int_ref, float_ref
 
 
 def test_config_properties():

@@ -8,17 +8,17 @@ import threading
 import numpy as np
 import pytest
 
-from mfcc_tpu.config import MFCCConfig
-from mfcc_tpu.io import transport
-from mfcc_tpu.utils import viewer
+from mfcc_jax.config import MFCCConfig
+from mfcc_jax.io import transport
+from mfcc_jax.utils import viewer
 
 CFG = MFCCConfig()
 
 
 def _cpu():
     """Server tests exercise protocol/slot semantics; pin the step to the
-    host CPU so they don't pay remote kernel compiles (TPU-step parity is
-    covered by tests/test_pallas_stream.py)."""
+    host CPU so they need no accelerator (the server on the GPU is
+    checked by chip_smoke.py's server phase)."""
     import jax
     return jax.devices("cpu")[0]
 
@@ -68,8 +68,8 @@ def test_follow_frames_resyncs_and_times_out():
 def test_live_viewer_against_feature_server(audio_int16):
     """End-to-end recv.c parity: a FeatureServer client feeds audio while the
     viewer follows the same connection's feature stream and scrolls."""
-    from mfcc_tpu.server import FeatureServer
-    from mfcc_tpu.ref import int_ref
+    from mfcc_jax.server import FeatureServer
+    from mfcc_jax.ref import int_ref
 
     sig = audio_int16[:1192]
     want = int_ref.mfcc_int(sig.astype(np.int64), CFG)
